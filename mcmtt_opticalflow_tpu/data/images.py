@@ -6,8 +6,9 @@ The reference grabs one JPEG per camera per frame with cv::imread
   * PETS layout (PSN_INPUT_TYPE=1):  <root>/View_%03d/frame_%04d.jpg
   * ETRI layout (PSN_INPUT_TYPE=0):  <root>/%d_%d.jpg  (camID_frame)
 
-Decoding uses PIL when present, else OpenCV, else PPM/PGM fallback (both
-PIL and cv2 ship in this environment; the fallback keeps tests hermetic).
+Decoding uses PIL when present, else OpenCV, else PPM/PGM fallback.  PIL
+and cv2 are optional: only JPEG datasets need one of them, and the
+fallback keeps tests hermetic.
 """
 
 from __future__ import annotations

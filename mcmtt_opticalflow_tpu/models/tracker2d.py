@@ -1,4 +1,4 @@
-"""Per-camera 2D tracklet generation — the TPU redesign of the reference's
+"""Per-camera 2D tracklet generation — the batched redesign of the reference's
 CPSNWhere_Tracker2D (psn_where/PSNWhere_Tracker2D.cpp).
 
 The reference loops over detections and trackers with per-object OpenCV
@@ -16,7 +16,7 @@ Stage structure mirrors the reference's Run (ref Tracker2D.cpp:251-373):
   4. forward LK of live trackers + box-chain cost    (ref :851-1025)
   5. assignment + gate validation + lifecycle        (ref :1038-1182)
 
-Deviations (deliberate, TPU-first):
+Deviations (deliberate, for fixed-shape batched device programs):
   * fixed LK window from config instead of per-box windows (pyramid supplies
     the scale range);
   * match-validation gates (3D distance / height / duration,
@@ -463,10 +463,11 @@ def make_tracker2d_step(cfg: Tracker2DConfig, multi_camera: bool = False):
     stacked TsaiCamera — the vmap replaces the reference's OpenMP
     per-camera loop (ref psn_where/PSNWhere.cpp:257-266).
     """
-    def step(state, gray, det_boxes, det_mask, cam, frame_idx):
+    @jax.named_scope("tracker2d")
+    def tracker2d(state, gray, det_boxes, det_mask, cam, frame_idx):
         return tracker2d_step(state, gray, det_boxes, det_mask, cam,
                               frame_idx, cfg)
 
     if multi_camera:
-        step = jax.vmap(step, in_axes=(0, 0, 0, 0, 0, None))
-    return jax.jit(step)
+        tracker2d = jax.vmap(tracker2d, in_axes=(0, 0, 0, 0, 0, None))
+    return jax.jit(tracker2d)

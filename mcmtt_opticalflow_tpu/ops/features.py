@@ -2,7 +2,7 @@
 
 The reference extracts "GridFAST" keypoints inside each detection box and
 randomly keeps at most 100 (ref psn_where/PSNWhere_Tracker2D.cpp:142,
-735-757).  The TPU-first equivalent: one Shi-Tomasi (min-eigenvalue)
+735-757).  The batched equivalent: one Shi-Tomasi (min-eigenvalue)
 response map per frame, then for every box a fixed lattice of candidate
 positions whose responses are gathered and reduced per grid cell — giving a
 static-shape [num_boxes, max_features] feature set with a validity mask and
@@ -52,10 +52,9 @@ def detect_grid_features(img: jnp.ndarray,
       points: [B, grid*grid, 2] feature (x, y) positions.
       valid:  [B, grid*grid] bool.
     """
-    # barrier: without it XLA fuses the response-map producer into the
-    # scattered point-sample consumer and RECOMPUTES the map per sample
-    # (~8 GB of attributed HBM traffic at bench config; with the barrier
-    # the map materializes once — scripts/tpu_2d_bisect.py)
+    # barrier: without it XLA may fuse the response-map producer into the
+    # scattered point-sample consumer and RECOMPUTE the map per sample;
+    # with the barrier the map materializes once
     resp = jax.lax.optimization_barrier(shi_tomasi_response(img))
     b = boxes.shape[0]
     n = grid * sub
@@ -69,10 +68,9 @@ def detect_grid_features(img: jnp.ndarray,
     h, w = img.shape
     xi = jnp.clip(xy[..., 0].astype(jnp.int32), 0, w - 1)
     yi = jnp.clip(xy[..., 1].astype(jnp.int32), 0, h - 1)
-    # sample with FLAT 1-D index vectors: multi-dim index arrays make XLA
-    # lower the gather through a ~7 GB slice-per-row path at this shape,
-    # while the flattened form is a plain fast gather
-    # (scripts/tpu_gather_micro.py / tpu_2d_bisect.py)
+    # sample with FLAT 1-D index vectors: the flattened form is one plain
+    # gather, where multi-dim index arrays can lower to a slice-per-row
+    # path
     r = resp[yi.reshape(-1), xi.reshape(-1)].reshape(yi.shape)  # [B, n*n]
     inb = ((xy[..., 0] >= 1) & (xy[..., 0] < w - 1)
            & (xy[..., 1] >= 1) & (xy[..., 1] < h - 1))

@@ -2,7 +2,7 @@
 
 The reference ports Munkres from MATLAB as a 6-step state machine with
 square-padding + infinity preprocessing (psn_where/helpers/PSNWhere_Hungarian.cpp:212-737).
-A state machine is the wrong shape for a TPU; the device path here is the
+A state machine is the wrong shape for batched device code; the path here is the
 Jonker-Volgenant successive-shortest-augmenting-path algorithm expressed
 as fixed-shape lax loops: one Dijkstra sweep per valid row, every inner
 step a vectorised [C] min/argmin/where, and cameras batch with vmap.  The

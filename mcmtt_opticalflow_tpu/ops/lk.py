@@ -3,7 +3,7 @@
 The reference's hottest loop is cv::calcOpticalFlowPyrLK called per
 detection (backward through a 4-frame buffer) and per live tracker (forward)
 with a per-box window size (ref psn_where/PSNWhere_Tracker2D.cpp:763-811,
-851-877).  A TPU wants one big batched problem instead: all features of all
+851-877).  An accelerator wants one big batched problem instead: all features of all
 boxes track in a single call — window gathers are batched bilinear samples,
 the 2x2 normal equations solve in registers, and the Newton iterations are a
 fixed-trip fori_loop.
@@ -90,8 +90,8 @@ def lk_track_points(prev_img: jnp.ndarray,
         dy = -(-gxy * bx + gxx * by) * inv_det
         step = jnp.stack([dx, dy], -1)
         cur = cur + jnp.where((ok_g & go)[:, None], step, 0.0)
-        # per-feature convergence mask, mirroring the Pallas kernel's
-        # early-exit and the reference's TermCriteria epsilon
+        # per-feature convergence mask, mirroring the reference's
+        # TermCriteria epsilon early-out
         # (ref Tracker2D.cpp:145): apply the sub-eps step, then stop
         go = go & ((jnp.abs(dx) + jnp.abs(dy)) > eps)
         return cur, go
@@ -107,89 +107,6 @@ def lk_track_points(prev_img: jnp.ndarray,
     resid = jnp.mean(jnp.abs(_bilinear(next_img, nw) - t_patch), axis=-1)
     valid = ok_g & inb
     return tracked, valid, resid
-
-
-def _use_pallas() -> bool:
-    """Kernel backend selection: the Pallas patch-DMA kernel on real TPUs,
-    the XLA gather path elsewhere (tests, CPU meshes).  Override with
-    MCMTT_LK_BACKEND=pallas|xla."""
-    import os
-
-    forced = os.environ.get("MCMTT_LK_BACKEND", "").lower()
-    if forced == "pallas":
-        return True
-    if forced == "xla":
-        return False
-    return jax.default_backend() == "tpu"
-
-
-def _make_lk_level(window: int, iterations: int):
-    """Single-level LK with a custom vmap rule: when callers vmap over
-    cameras (the camera-batched 2D tracker), the batch collapses into one
-    flat-feature Pallas kernel invocation over stacked images instead of a
-    per-camera loop."""
-    from jax import custom_batching
-
-    def xla_impl(prev, nxt, src, cur, act):
-        del act
-        ix, iy = image_gradients(prev)
-        return lk_track_points(prev, nxt, ix, iy, src, cur,
-                               window=window, iterations=iterations)
-
-    def pallas_impl(prev_c, nxt_c, cam, src, cur, act):
-        from mcmtt_opticalflow_tpu.ops.lk_pallas import lk_level_pallas
-
-        # Mosaic dynamic rotates need lane extents that are multiples of
-        # 128 (and sublane of 8): edge-pad the level images
-        _, h, w_ = prev_c.shape
-        ph_pad = (-h) % 8
-        pw_pad = (-w_) % 128
-        if ph_pad or pw_pad:
-            pad = ((0, 0), (0, ph_pad), (0, pw_pad))
-            prev_c = jnp.pad(prev_c, pad, mode="edge")
-            nxt_c = jnp.pad(nxt_c, pad, mode="edge")
-        return lk_level_pallas(prev_c, nxt_c, cam, src, cur, active=act,
-                               window=window, iters=iterations)
-
-    def pallas_ok(h, w_, n):
-        # the patch-DMA kernel needs room for its tile-aligned margins and
-        # a BATCH-divisible feature count; tiny pyramid levels (tests) and
-        # odd batch sizes use the XLA path
-        return (_use_pallas() and h >= 40 and w_ >= 128 and h % 8 == 0
-                and n % 8 == 0)
-
-    @custom_batching.custom_vmap
-    def lk_level(prev, nxt, src, cur, act):
-        h, w_ = prev.shape
-        if pallas_ok(h, w_, src.shape[0]):
-            n = src.shape[0]
-            return pallas_impl(prev[None], nxt[None],
-                               jnp.zeros((n,), jnp.int32), src, cur, act)
-        return xla_impl(prev, nxt, src, cur, act)
-
-    @lk_level.def_vmap
-    def _rule(axis_size, in_batched, prev, nxt, src, cur, act):
-        del in_batched
-        h, w_ = prev.shape[1:]
-        if pallas_ok(h, w_, src.shape[1]):
-            c = axis_size
-            n = src.shape[1]
-            cam = jnp.repeat(jnp.arange(c, dtype=jnp.int32), n)
-            tracked, valid, resid = pallas_impl(
-                prev, nxt, cam, src.reshape(c * n, 2),
-                cur.reshape(c * n, 2), act.reshape(c * n))
-            out = (tracked.reshape(c, n, 2), valid.reshape(c, n),
-                   resid.reshape(c, n))
-        else:
-            out = jax.vmap(xla_impl)(prev, nxt, src, cur, act)
-        return out, (True, True, True)
-
-    return lk_level
-
-
-@functools.lru_cache(maxsize=8)
-def _lk_level_cached(window: int, iterations: int):
-    return _make_lk_level(window, iterations)
 
 
 def lk_track_prebuilt(prev_pyr: Sequence[jnp.ndarray],
@@ -214,11 +131,12 @@ def lk_track_prebuilt(prev_pyr: Sequence[jnp.ndarray],
         active = jnp.ones((n,), bool)
     valid = active
     resid = jnp.zeros((n,), points.dtype)
-    lk_level = _lk_level_cached(window, iterations)
     for lvl in range(levels - 1, -1, -1):
         src = points / (2.0 ** lvl)
-        cur, v, resid = lk_level(prev_pyr[lvl], next_pyr[lvl], src, cur,
-                                 active)
+        ix, iy = image_gradients(prev_pyr[lvl])
+        cur, v, resid = lk_track_points(prev_pyr[lvl], next_pyr[lvl], ix, iy,
+                                        src, cur, window=window,
+                                        iterations=iterations)
         valid = valid & v
         if lvl > 0:
             cur = cur * 2.0
@@ -238,8 +156,8 @@ def lk_track_pyramid(prev_img: jnp.ndarray,
     """Pyramidal LK: track [N, 2] points from prev_img to next_img.
 
     Images are [H, W] float gray in [0, 1]; H, W divisible by 2**(levels-1).
-    `active` marks real (non-padding) features: inactive ones skip compute
-    on the Pallas path and return status False.
+    `active` marks real (non-padding) features: inactive ones return
+    status False.
     Returns (tracked [N, 2], status [N] bool, residual [N]).
     """
     prev_pyr = build_pyramid(prev_img, levels)

@@ -25,10 +25,9 @@ def _sep_conv(img: jnp.ndarray, k: jnp.ndarray) -> jnp.ndarray:
     """Separable 2D convolution with edge padding. img: [..., H, W].
 
     Written as explicit shifted adds rather than conv_general_dilated:
-    XLA lowers tiny-kernel convs on TPU through an im2col/GEMM path that
-    measured ~650 MB of HBM traffic per 4-camera 768x576 blur — the
-    shifted-add form stays elementwise on the VPU and fuses with its
-    consumers (scripts/tpu_2d_bisect.py)."""
+    the shifted-add form stays elementwise and fuses with its consumers
+    instead of going through a generic convolution for a 3- or 5-tap
+    kernel."""
     pad = (k.shape[0] - 1) // 2
     h, w = img.shape[-2:]
     kk = [float(v) for v in np.asarray(k)]

@@ -6,7 +6,7 @@ re-smoothing only the tail after each insert (PSNWhere_SGSmooth.cpp:198-260)
 and precomputing per-window-size Q matrices via Vandermonde + Gram-Schmidt QR
 (CalculateQ, PSNWhere_SGSmooth.cpp:109-196).
 
-TPU-first design: smoothing a length-n sequence is a linear map, so we
+Batched design: smoothing a length-n sequence is a linear map, so we
 precompute one [n, n] smoothing matrix per valid window length — built from
 the same Q-projection rows as the reference:
 
@@ -16,15 +16,17 @@ the same Q-projection rows as the reference:
   * rows n-h..n-1    : (Q Q^T)[h+1:w]    — the reference's Qend
 
 Batched smoothing over T tracks x 3 axes becomes a single gathered batch
-matmul (MXU-friendly) instead of per-track incremental tail updates.
-Incremental semantics are unnecessary on TPU: recomputing the whole
-windowed trajectory is one fused matmul.
+matmul instead of per-track incremental tail updates: recomputing the
+whole windowed trajectory is one fused matmul.  The matmuls run at
+Precision.HIGHEST: positions are ~1e4 mm, and a TF32 product (~3 decimal
+digits) would move smoothed points by ~10 mm.
 """
 
 from __future__ import annotations
 
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -80,7 +82,7 @@ def sg_smooth(data: jnp.ndarray, span: int = 9, degree: int = 1) -> jnp.ndarray:
     """Smooth [n] or [n, d] data directly (test/reference path)."""
     n = data.shape[0]
     s = jnp.asarray(smoothing_matrix_np(n, span, degree), data.dtype)
-    return s @ data
+    return jnp.matmul(s, data, precision=jax.lax.Precision.HIGHEST)
 
 
 def sg_smooth_masked(data: jnp.ndarray, lengths: jnp.ndarray,
@@ -96,6 +98,7 @@ def sg_smooth_masked(data: jnp.ndarray, lengths: jnp.ndarray,
     b, t, d = data.shape
     mats = sg_smoothing_matrix(t, span, degree)          # [T+1, T, T]
     sel = mats[jnp.clip(lengths, 0, t)]                  # [B, T, T]
-    smoothed = jnp.einsum("bij,bjd->bid", sel, data)
+    smoothed = jnp.einsum("bij,bjd->bid", sel, data,
+                          precision=jax.lax.Precision.HIGHEST)
     idx = jnp.arange(t)[None, :, None]
     return jnp.where(idx < lengths[:, None, None], smoothed, data)

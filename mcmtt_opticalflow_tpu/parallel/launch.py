@@ -1,8 +1,8 @@
 """Multi-host launch helpers.
 
 The reference is single-process (SURVEY.md §5 — no distributed backend);
-this engine scales across hosts with jax.distributed + one global mesh:
-camera shards on the outer (DCN) axis, solver/track blocks inner (ICI).
+this engine scales across hosts with jax.distributed + one global mesh
+of ('cam', 'block') axes: camera shards and solver/track blocks.
 
 Typical 2-host launch (one process per host):
 
@@ -21,7 +21,8 @@ def init(coordinator_address: Optional[str] = None,
          num_processes: Optional[int] = None,
          process_id: Optional[int] = None) -> None:
     """Initialise jax.distributed for multi-host operation.  With no
-    arguments, uses the cluster auto-detection (TPU pod environments)."""
+    arguments, JAX's cluster auto-detection supplies them (a cluster
+    manager such as SLURM); elsewhere pass all three."""
     kwargs = {}
     if coordinator_address is not None:
         kwargs.update(coordinator_address=coordinator_address,

@@ -26,7 +26,7 @@ def solve_mwcp_sharded(weights, adj, valid, init_mask, key,
     """Solve one MWCP instance with replicas spread across the 'block' axis.
 
     Each shard runs cfg.num_replicas BLS replicas locally; the winning
-    clique is chosen by collective score comparison over ICI.
+    clique is chosen by a collective score comparison over the mesh.
 
     Returns (best_mask [V] bool, best_score scalar, all_masks [B*R, V],
     all_scores [B*R]) with B = number of 'block' shards.

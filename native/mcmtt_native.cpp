@@ -1,6 +1,6 @@
 // Native host-side runtime components for mcmtt_opticalflow_tpu.
 //
-// The reference system is entirely native C++ (SURVEY.md §2); in the TPU
+// The reference system is entirely native C++ (SURVEY.md §2); in this
 // engine the compute path is JAX/XLA device code, and these C++ pieces
 // cover the host-side roles where native code genuinely pays off:
 //

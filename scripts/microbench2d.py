@@ -41,21 +41,14 @@ def main():
                           * [w - 64, h - 64] + 32)
         act = jnp.ones((4, npts), bool)
 
-        for backend in ("pallas", "xla"):
-            os.environ["MCMTT_LK_BACKEND"] = backend
-            import mcmtt_opticalflow_tpu.ops.lk as lkmod
-            lkmod._lk_level_cached.cache_clear()
+        @jax.jit
+        def run(p, q, x, a):
+            f = jax.vmap(lambda pi, qi, xi, ai: lk_track_pyramid(
+                pi, qi, xi, levels=2, window=16, iterations=8,
+                active=ai))
+            return f(p, q, x, a)
 
-            @jax.jit
-            def run(p, q, x, a):
-                f = jax.vmap(lambda pi, qi, xi, ai: lk_track_pyramid(
-                    pi, qi, xi, levels=2, window=16, iterations=8,
-                    active=ai))
-                return f(p, q, x, a)
-
-            bench(f"lk[{tag} {npts}x4cam {backend}]", run, prev, nxt,
-                  pts, act)
-        os.environ.pop("MCMTT_LK_BACKEND", None)
+        bench(f"lk[{tag} {npts}x4cam]", run, prev, nxt, pts, act)
 
     # grid features at detection shapes
     boxes = jnp.asarray(rng.rand(4, 32, 4).astype(np.float32)

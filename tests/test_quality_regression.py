@@ -131,9 +131,9 @@ class TestDensityQuality:
         # This fixture's GT-derived stream SATURATES (w0 MOTA ~0.965):
         # deferral has almost nothing to fix and trades a few FP/FN for
         # id continuity, so each window step may cost up to ~0.01 MOTA
-        # here.  The strict-monotone lock lives on the driver bench scene
-        # with the REAL 2D stream (bench.py: w0 < w3 < w6 since the
-        # temporal-resume retune — 0.8317/0.8452/0.8477, BENCH_r05);
+        # here.  The strict-monotone lock lives on the bench scene with
+        # the REAL 2D stream (bench.py: w0 < w3 < w6 since the
+        # temporal-resume retune; chip_smoke.py reports the triple);
         # this gate bounds the saturated-regime loss per step at half the
         # r4 tolerance.
         r = density_results

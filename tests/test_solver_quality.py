@@ -63,6 +63,8 @@ def recorded_graphs():
         eng.process_frame(frames, sc.detections[t], frame_idx=t)
     graphs = [g for g in eng.assoc.graph_dump if g["valid"].sum() >= 3]
     assert graphs, "engine recorded no non-trivial hypothesis graphs"
+    for g in graphs:
+        g["adj"] = eng.assoc.graph_adjacency(g)
     return graphs, cfg.solver
 
 
